@@ -1,4 +1,4 @@
-"""craytracer_tpu — a TPU-native differentiable wavefront path tracer.
+"""craytracer_tpu — a differentiable wavefront path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 CPU path tracer `entropian/CRaytracer` (see SURVEY.md): physically-based path
@@ -9,7 +9,7 @@ files, progressive rendering with checkpoint/resume — all expressed as batched
 SoA wavefront stages over ray queues so that every hot loop is a single fused
 XLA/Pallas program over `[N]`-shaped arrays instead of a per-ray recursion.
 
-Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md §1, re-designed for batched accelerators):
   core/        L0 math substrate (vec ops on [..., 3] arrays, root solvers, AABB)
   sampling/    L7 samplers (counter-based threefry RNG, disk/hemisphere maps)
   camera.py    L7 camera + film (pinhole, thin-lens)
@@ -20,7 +20,7 @@ Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
   lights/      L5 light tables, NEE sampling
   accel/       L2 uniform grid + BVH build & traversal
   integrator/  L6 wavefront path-tracing loop, progressive renderer
-  parallel/    multi-chip/multi-host sharding (mesh + shard_map)
+  parallel/    multi-device/multi-host sharding (mesh + shard_map)
   utils/       tone mapping, metrics
 """
 

@@ -19,15 +19,15 @@ Node layout (depth-first): internal nodes store the right-child index and
 split axis (left child is node+1); leaves store (first_tri, count) into a
 leaf-reordered triangle index array.
 
-TPU note — FAT node rows (same rationale as accel/bvh4.py): XLA gathers
-are latency-bound per op but row width is nearly free, so each node row
+FAT node rows (same rationale as accel/bvh4.py): one gather per
+traversal step costs less than many narrow ones, so each node row
 inlines its box, right/axis, and the leaf's <=LEAF_SIZE triangles
 (v0/e1/e2/orig-id) — ONE gather per traversal step instead of 22.
 """
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,15 +53,15 @@ _BIN_TRI0 = 8
 BIN_FAT_WIDTH = _BIN_TRI0 + LEAF_SIZE * _TRI_COLS
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class BVHArrays:
     fat: jnp.ndarray  # [M, BIN_FAT_WIDTH]
-    n_tris: int = flax.struct.field(pytree_node=False, default=0)
+    n_tris: int = struct.field(pytree_node=False, default=0)
     # Static per-tree stack bound (depth+4, computed at build). The stack
     # is stored [stack_size, N] — major-dim stack index — so pop/push
     # traffic is stack_size*N exactly instead of the minor-dim 128-lane
     # padding of an [N, S] layout (see bvh4.BVH4Arrays.stack_size).
-    stack_size: int = flax.struct.field(pytree_node=False, default=MAX_STACK)
+    stack_size: int = struct.field(pytree_node=False, default=MAX_STACK)
 
 
 def _stack_bound_bin(fat_np) -> int:
@@ -223,7 +223,7 @@ def _traverse(bvh: BVHArrays, o, d, any_hit: bool, max_dist=None):
     def body(state):
         sp, stack, best_t, best_tri = state
         active = sp > 0
-        # dense pop (see bvh4._traverse4: gathers are latency-bound on TPU)
+        # dense pop (see bvh4._traverse4: one gather per step)
         top = sp - 1
         node = jnp.sum(jnp.where(iota_s == top[None, :], stack, 0), axis=0)
         sp = jnp.where(active, top, sp)
@@ -231,9 +231,7 @@ def _traverse(bvh: BVHArrays, o, d, any_hit: bool, max_dist=None):
 
         row = jnp.take(bvh.fat, node_c, axis=0)  # THE gather
 
-        # Unrolled to pure [N] vectors (see bvh4._traverse4: small minor
-        # dims are lane-padded to 128 on TPU; their padding traffic
-        # dominated the step cost).
+        # Unrolled to pure [N] vectors (see bvh4._traverse4).
         col = lambda j: row[:, j]  # noqa: E731
         ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
         dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]

@@ -5,7 +5,7 @@ Built by collapsing the binary BVH one level (each node adopts its
 grandchildren), so the tree is half as deep — and since the batched
 traversal's wall time is dominated by the `lax.while_loop` trip count (the
 max node-visit chain over all lanes), the 4-box-per-iteration test roughly
-halves the serial depth at the cost of wider (but VPU-friendly) per-step
+halves the serial depth at the cost of wider (but dense) per-step
 work — exactly the trade the reference's SSE 4-box slab test makes
 (rayIntersectAABB4, accelerator/bvh4.h:23-97).
 
@@ -17,14 +17,12 @@ Node layout (SoA, the batched analog of BVHNode4's float[24] box block):
 Children are tested simultaneously; hits are pushed far-to-near (insertion
 sort over 4 via masked swaps) so the nearest pops first.
 
-TPU note — the FAT-ROW traversal: XLA gathers on TPU are latency-bound
-per gather op (~1.4-4.6ms at 65k-262k lanes on v5e) but row width is
-nearly free (measured: [262k]<-[M,13] == [M,256] within 12%). Round 1
-issued ~69 gathers per while-loop step (5 node fields + 4 child slots x
-LEAF_SIZE tris x 3 vertex arrays); this build instead packs EVERYTHING a
-traversal step needs into one [M, 192] row — 4 child boxes, child ids,
-leaf counts, and all 4 leaf children's triangles (v0/e1/e2/orig-id,
-padded to LEAF_SIZE) — so each step is ONE gather plus dense VPU math.
+The FAT-ROW traversal: instead of ~69 gathers per while-loop step (5
+node fields + 4 child slots x LEAF_SIZE tris x 3 vertex arrays), this
+build packs EVERYTHING a traversal step needs into one fat row — 4 child
+boxes, child ids, leaf counts, and all 4 leaf children's triangles
+(v0/e1/e2/orig-id, padded to LEAF_SIZE) — so each step is ONE gather plus
+dense elementwise math.
 Triangles of missed child boxes are tested anyway (correctness-neutral:
 a triangle inside a missed or too-far box can never beat best_t; padded
 slots carry degenerate data that never hits) — masking would cost more
@@ -33,7 +31,7 @@ than the 16 extra Moller-Trumbore lanes.
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,23 +51,22 @@ _FAT_TRI0 = 28
 FAT_WIDTH = _FAT_TRI0 + WIDTH * LEAF_SIZE * _TRI_COLS
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class BVH4Arrays:
     fat: jnp.ndarray  # [M, >=fat_width(leaf_size)] fat node rows
-    n_tris: int = flax.struct.field(pytree_node=False, default=0)
-    # Static so jit specializes the row slicing. TPU gather cost falls off
-    # a cliff above 128 f32 columns (measured: [262k]<-[M,128] 0.74ms vs
-    # [M,188] 3.38ms, profiling/ablate_fat_gather.py) — leaf_size=2 keeps
-    # the row at 108 cols (padded to the 128-lane register row), trading
-    # ~1 extra tree level for a 3x cheaper per-step gather.
-    leaf_size: int = flax.struct.field(pytree_node=False, default=LEAF_SIZE)
+    n_tris: int = struct.field(pytree_node=False, default=0)
+    # Static so jit specializes the row slicing. leaf_size=2 keeps the
+    # row at 108 cols (one 128-column row), trading ~1 extra tree level
+    # for a narrower per-step gather (a choice made for the previous
+    # accelerator, not yet re-measured on the GPU: ROADMAP.md 1f).
+    leaf_size: int = struct.field(pytree_node=False, default=LEAF_SIZE)
     # Static per-tree stack bound (3*depth + margin, computed at build):
     # the traversal stack is [stack_size, N] — stack index in the MAJOR
     # dim, so pop/push traffic is stack_size*N exactly instead of the
-    # minor-dim 128-lane padding a [N, S] layout pays. Class-attr default
+    # minor-dim padding a [N, S] layout can pay. Class-attr default
     # keeps pickles from before this field loading (dataclass defaults
     # resolve via the class).
-    stack_size: int = flax.struct.field(pytree_node=False, default=MAX_STACK)
+    stack_size: int = struct.field(pytree_node=False, default=MAX_STACK)
 
 
 def fat_width(leaf_size: int) -> int:
@@ -263,24 +260,20 @@ def _traverse4(bvh: BVH4Arrays, o, d, any_hit: bool, max_dist=None,
                with_stats: bool = False):
     """Fat-row stack traversal: ONE [N] gather per step (module docstring).
 
-    TPU cost model (measured, see profiling/README.md): dynamic gathers
-    are LATENCY-bound (~0.9ms flat at 262k lanes) while dense elementwise
-    traffic runs at HBM bandwidth — so the loop body keeps exactly one
-    gather (the fat row) and expresses everything else as dense masked
-    ops: the stack pop is a masked reduction over [N, S], the four child
-    pushes collapse into one relative-offset select, and the 16-slot leaf
-    winner is an unrolled compare chain instead of argmin + take_along.
-    This took the measured per-step cost from ~15ms to gather+bandwidth."""
+    The loop body keeps exactly one gather (the fat row) and expresses
+    everything else as dense masked ops: the stack pop is a masked
+    reduction over [N, S], the four child pushes collapse into one
+    relative-offset select, and the 16-slot leaf winner is an unrolled
+    compare chain instead of argmin + take_along. Each while-loop trip
+    costs the longest lane's chain (ROADMAP.md 1c)."""
     n = o.shape[0]
     inv_d = 1.0 / vm._safe(d)
     if max_dist is None:
         max_dist = jnp.full((n,), TMAX)
 
-    # Stack layout [S, n]: stack index in the MAJOR dim. A [n, S] stack
-    # lane-pads S to 128 on TPU, so every pop (masked reduce) and push
-    # (masked select) moves 128*n words regardless of S; transposed, the
-    # traffic is the true S*n with S a per-tree static bound (3*depth+4,
-    # typically 48-64 instead of 128).
+    # Stack layout [S, n]: stack index in the MAJOR dim, so every pop
+    # (masked reduce) and push (masked select) moves S*n words with S a
+    # per-tree static bound (3*depth+4, typically 48-64).
     S = int(bvh.stack_size)
     stack = jnp.zeros((S, n), jnp.int32)
     sp = jnp.ones((n,), jnp.int32)  # root node 0 pushed
@@ -309,11 +302,8 @@ def _traverse4(bvh: BVH4Arrays, o, d, any_hit: bool, max_dist=None,
 
         row = jnp.take(bvh.fat, node_c, axis=0)  # [N, FAT_WIDTH] — THE gather
 
-        # Everything below is unrolled to pure [N] vectors: on TPU, small
-        # minor dims are lane-padded to 128 ([N,4,3] wastes 42x, [N,K,10]
-        # 12x), and the padding traffic dominated the step (measured:
-        # box test 1.85ms, leaf MT 1.34ms of a ~4.5ms step at 262k lanes
-        # in the [N,4,3] form — profiling/ablate_traversal_step.py).
+        # Everything below is unrolled to pure [N] vectors: no small
+        # minor dimension ([N,4,3], [N,K,10]) is materialized.
         col = lambda j: row[:, j]  # noqa: E731
         ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
         dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]

@@ -18,7 +18,7 @@ conventions (sphere.cpp:33-86): phi = atan2(x, z), REJECT on
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,15 +33,14 @@ _SPH0 = 28  # cols 0:24 child boxes, 24:28 child ids
 SPH_FAT_WIDTH = _SPH0 + WIDTH * LEAF_SIZE * _SPH_COLS
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SphereBVH4:
     fat: jnp.ndarray  # [M, >=28 + 4*leaf_size*8] (padded to 128 cols)
-    n_prims: int = flax.struct.field(pytree_node=False, default=0)
-    # leaf_size=2 keeps rows at 92 cols, under the 128-col TPU gather
-    # cliff (profiling/ablate_fat_gather.py)
-    leaf_size: int = flax.struct.field(pytree_node=False, default=LEAF_SIZE)
+    n_prims: int = struct.field(pytree_node=False, default=0)
+    # leaf_size=2 keeps rows at 92 cols (one 128-column row)
+    leaf_size: int = struct.field(pytree_node=False, default=LEAF_SIZE)
     # Static per-tree stack bound; stack stored [S, N] (see bvh4.BVH4Arrays).
-    stack_size: int = flax.struct.field(pytree_node=False, default=MAX_STACK)
+    stack_size: int = struct.field(pytree_node=False, default=MAX_STACK)
 
 
 def build_bvh4_spheres(center: np.ndarray, radius: np.ndarray,
@@ -107,7 +106,7 @@ def _traverse_s(bvh: SphereBVH4, o, d, any_hit: bool, max_dist=None):
     def body(state):
         sp, stack, best_t, best_prim = state
         active = sp > 0
-        # dense pop (see bvh4._traverse4: gathers are latency-bound on TPU)
+        # dense pop (see bvh4._traverse4: one gather per step)
         top = sp - 1
         node = jnp.sum(jnp.where(iota_s == top[None, :], stack, 0), axis=0)
         sp = jnp.where(active, top, sp)
@@ -115,8 +114,7 @@ def _traverse_s(bvh: SphereBVH4, o, d, any_hit: bool, max_dist=None):
 
         row = jnp.take(bvh.fat, node_c, axis=0)  # THE gather
 
-        # Unrolled to pure [N] vectors (see bvh4._traverse4: small minor
-        # dims are lane-padded to 128 on TPU; padding traffic dominated).
+        # Unrolled to pure [N] vectors (see bvh4._traverse4).
         colf = lambda j: row[:, j]  # noqa: E731
         ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
         dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]

@@ -25,7 +25,7 @@ two-column gather.
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +36,7 @@ from craytracer_tpu.core import math as vm
 TESTS_PER_ITER = 8  # one batched gather per iter: wider is nearly free (latency-bound)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class GridArrays:
     bbox_min: jnp.ndarray  # [3]
     bbox_max: jnp.ndarray  # [3]
@@ -153,12 +153,11 @@ def build_grid(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
 def _tri_test_k(grid: GridArrays, o, d, slots, valid, best_t, best_tri,
                 any_hit, max_dist):
     """Batched [N, K] cell-triangle test: one gather + dense MT + unrolled
-    winner (same TPU cost model as the BVH traversals)."""
+    winner (same one-gather-per-step design as the BVH traversals)."""
     k = slots.shape[1]
     slot_c = jnp.clip(slots, 0, grid.tri_rows.shape[0] - 1)
     row = jnp.take(grid.tri_rows, slot_c, axis=0)  # ONE [N, K, 10] gather
-    # Unrolled to pure [N] vectors (see bvh4._traverse4: small minor dims
-    # are lane-padded to 128 on TPU; padding traffic dominates otherwise).
+    # Unrolled to pure [N] vectors (see bvh4._traverse4).
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     for j in range(k):
@@ -261,9 +260,7 @@ def _traverse(grid: GridArrays, o, d, any_hit: bool, max_dist=None):
         drain = alive & (cur < end)
 
         # Test up to K triangles from the current cell in ONE batched
-        # gather ([N, K] slot matrix): gathers are latency-bound on TPU
-        # (~0.9ms flat, profiling/README.md), so K separate takes cost K
-        # times more than one take of K rows.
+        # gather ([N, K] slot matrix) instead of K separate takes.
         idx = cur[:, None] + jnp.arange(TESTS_PER_ITER, dtype=jnp.int32)[None, :]
         valid = drain[:, None] & (idx < end[:, None])  # [N, K]
         slots = jnp.take(grid.tri_slot,

@@ -3,7 +3,7 @@
 The reference builds a per-hit list of BxDF pointers from a thread-shared
 mutex-guarded pool (`computeScatteringFunc` materials.cpp:111-188 +
 `mempool.cpp`) and dispatches through type switches (`reflection.cpp`).
-TPU-native re-design: each material type maps to a *static* lobe
+Wavefront re-design: each material type maps to a *static* lobe
 configuration, hit lanes gather their parameters from the flat material
 table, and every lobe formula runs masked for all lanes — no allocation, no
 branching, one fused program for a mixed-material wavefront.
@@ -30,7 +30,7 @@ evaluate in the local frame correctly.
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax.numpy as jnp
 
 from craytracer_tpu.constants import INV_PI, PI
@@ -41,7 +41,7 @@ from craytracer_tpu.bsdf.texture import tex_lookup_nearest
 from craytracer_tpu.scene import types as T
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class MatParams:
     """Per-hit material parameters gathered from the table ([N, ...])."""
 
@@ -63,7 +63,7 @@ class MatParams:
     normal_tex: jnp.ndarray  # int32 normal-map texture id or -1
     # Static: every MATTE row has sigma == 0 (scene.matte_lambertian), so
     # _oren_nayar_f's trig compiles away to color * on_a / pi.
-    lambertian_only: bool = flax.struct.field(pytree_node=False, default=False)
+    lambertian_only: bool = struct.field(pytree_node=False, default=False)
 
 
 def gather_params(materials: T.Materials, textures: T.TexturePack, mat_id, uv,
@@ -268,7 +268,7 @@ def _glass_trans_pdf(wi, wo, ior_in, ior_out, ax, ay, dist):
 def _use(present, *codes) -> bool:
     """Static lobe gate: `present` is the scene's mat_types_present
     (None/empty = unknown -> evaluate everything). jit specializes on it,
-    so absent material types compile to NOTHING — the TPU answer to the
+    so absent material types compile to NOTHING — the batched answer to the
     reference's per-hit BxDF-list construction (materials.cpp:111-188)."""
     return not present or any(c in present for c in codes)
 

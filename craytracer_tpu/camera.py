@@ -18,7 +18,7 @@ first wavefront stage. Conventions preserved for image parity:
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax.numpy as jnp
 import numpy as np
 
@@ -29,7 +29,7 @@ PINHOLE = 0
 THINLENS = 1
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Camera:
     """Differentiable camera parameters (a pytree leaf set).
 
@@ -43,14 +43,14 @@ class Camera:
     focal_dist: jnp.ndarray  # scalar; view-plane distance (0.035 default)
     focal_length: jnp.ndarray  # scalar; focal-plane distance (thin lens)
     lens_radius: jnp.ndarray  # scalar
-    camera_type: int = flax.struct.field(pytree_node=False, default=PINHOLE)
+    camera_type: int = struct.field(pytree_node=False, default=PINHOLE)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Film:
     fov: jnp.ndarray  # radians (vertical of width-based per reference)
-    width: int = flax.struct.field(pytree_node=False, default=256)
-    height: int = flax.struct.field(pytree_node=False, default=256)
+    width: int = struct.field(pytree_node=False, default=256)
+    height: int = struct.field(pytree_node=False, default=256)
 
     @property
     def num_pixels(self) -> int:

@@ -15,10 +15,9 @@ from craytracer_tpu.constants import INV_PI, PI, TWO_PI
 
 def dot(a, b, keepdims: bool = False):
     # Component-expanded rather than jnp.sum(axis=-1): a minor-dim reduce
-    # compiles to its own TPU reduce-fusion kernel (profiler: ~23 separate
-    # *_reduce_fusion launches per bounce, each paying HBM round trips),
-    # while the expanded form is plain elementwise math that XLA fuses into
-    # neighboring producers/consumers.
+    # can compile to its own reduce-fusion kernel with a device-memory
+    # round trip, while the expanded form is plain elementwise math that
+    # XLA fuses into neighboring producers/consumers.
     if a.shape[-1] == 3 or b.shape[-1] == 3:
         r = (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
              + a[..., 2] * b[..., 2])
@@ -128,6 +127,14 @@ def to_local(v, t, b, n):
 def to_world(v, t, b, n):
     """Shading-local -> world (orthoNormalTransform, util/math.h:55)."""
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def mat3_apply(m, v):
+    """M v for 3x3 matrices m [..., 3, 3] and vectors v [..., 3]
+    (broadcasting), written as explicit multiply-adds: exact float32,
+    where a matmul may run at reduced (TF32) precision on a GPU."""
+    return (m[..., :, 0] * v[..., None, 0] + m[..., :, 1] * v[..., None, 1]
+            + m[..., :, 2] * v[..., None, 2])
 
 
 # ---------------------------------------------------------------------------

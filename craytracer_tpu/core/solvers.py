@@ -3,7 +3,7 @@
 Replaces the reference's scalar `solveQuadric`/`solveCubic`/`solveQuartic`
 (`util/math.cpp:156-340`, used by the torus at `shapes/generic.cpp:156-222`)
 with mask-based versions that evaluate a fixed op sequence for every lane —
-the TPU-native shape: no data-dependent branching, all lanes run the same
+the batched shape: no data-dependent branching, all lanes run the same
 program, invalid roots are carried as +TMAX sentinels.
 
 Quartic strategy: Ferrari's method through the resolvent cubic in f32,

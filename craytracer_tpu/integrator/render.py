@@ -29,13 +29,11 @@ class RenderConfig:
     max_depth: int = 5
     seed: int = 0
     tile_pixels: int = 0  # 0 = whole image per pass
-    # Trace B spp in ONE dispatch (lanes = B * pixels). TPU traversal
-    # per-step cost is nearly flat in lane count while the while-loop trip
-    # count is paid per dispatch, so batching spp amortizes it
-    # (profiling/README.md). B=1 is bit-identical to the sequential loop;
-    # B>1 changes only fp accumulation order and NaN-recovery substitutes.
-    # 0 = AUTO: TPU + accel-backed triangle scene batches up to ~2M lanes
-    # per dispatch (measured +26%, REF_PERF.json); else 1.
+    # Trace B spp in ONE dispatch (lanes = B * pixels): the traversal's
+    # while-loop trip count is paid per dispatch, so batching spp can
+    # amortize it. B=1 is bit-identical to the sequential loop; B>1
+    # changes only fp accumulation order and NaN-recovery substitutes.
+    # 0 = auto, which is currently B=1.
     spp_batch: int = 1
     log_every: int = 0  # print progress every k passes (0 = silent)
     estimator: str = "reference"
@@ -77,10 +75,10 @@ class RenderConfig:
     # reference's regular/multijittered/Hammersley sample sets
     # (sampling.cpp:169-352) for the film-jitter dimension.
     sampler: object = None
-    # Ray dispatch order: "morton" interleaves pixel bits so each 2048-ray
-    # traversal block is a compact image tile instead of a scanline strip
-    # (measured 3.7x on the binned accel; bit-identical image — the RNG
-    # keys off pixel id, so this is a pure reorder).
+    # Ray dispatch order: "morton" interleaves pixel bits so each block of
+    # rays is a compact image tile instead of a scanline strip (coherent
+    # blocks for the block-synchronous binned accel; bit-identical image —
+    # the RNG keys off pixel id, so this is a pure reorder).
     ray_order: str = "morton"
 
 
@@ -118,10 +116,9 @@ def _pass_step_batched(scene: Scene, camera: Camera, film: Film, pixel_ids,
 
 class Renderer:
     def __init__(self, scene: Scene, camera: Camera, film: Film, config: RenderConfig):
-        # Deviation (measured, ENV_IMPORTANCE_AB.json): HDR-texture env
-        # lights default to texel IMPORTANCE sampling under the
-        # principled estimators — 1.97x lower MSE at equal spp on the
-        # fullscene sun env, and the cosine strategy inherits the
+        # Deviation: HDR-texture env lights default to texel IMPORTANCE
+        # sampling under the principled estimators — lower MSE at equal
+        # spp on a sun-dominated env, and the cosine strategy inherits the
         # reference's rotated-env pdf quirk (trace.h:307: the pdf is
         # evaluated with the TRANSFORM-ROTATED sample against the normal,
         # a genuine bias on rotated envs). estimator="reference" keeps
@@ -175,32 +172,11 @@ class Renderer:
         s = self.spp_done
         end = self.spp_done + cfg.num_samples
         B = max(1, cfg.spp_batch)
-        if cfg.spp_batch == 0:
-            # auto: on the TPU backend with an accel-backed triangle
-            # scene, batch spp until ~2M lanes per dispatch — measured
-            # +26% end-to-end on the 327k-tri bench (REF_PERF.json
-            # matrix: dispatch count amortizes per-dispatch overhead and
-            # fills the packet-kernel grid). CPU and brute-force scenes
-            # keep B=1 (lane count there IS the cost).
-            import jax as _jax
-
-            n_tris = self.scene.triangles.mat_id.shape[0]
-            if (_jax.default_backend() == "tpu"
-                    and self.scene.accel != "none" and n_tris >= 4096):
-                # Lanes per dispatch is min(tile, n) when tile_pixels
-                # splits the pass — size B off that, not the full film,
-                # or tiled renders under-fill the ~2M-lane target.
-                B = max(1, min(16, 2_000_000 // max(min(tile, n), 1)))
-        # Fused Pallas shade auto-gate (integrator/pallas_shade.py): TPU
-        # forward renders of matte/emissive + rect-light scenes take the
-        # single-kernel shade (+58% measured on Cornell 512^2, 2026-08-20).
-        # CRAYTRACER_PALLAS_SHADE=0 disables; =1 forces (interpret mode on
-        # CPU — for debugging only).
         from craytracer_tpu.integrator.pallas_shade import \
             production_fast_shade
 
-        # "bounce" = whole-pass megakernel (brute-force scenes),
-        # "shade" = shade kernel + external traversal, False = XLA
+        # "bounce" = whole-pass megakernel (brute-force scenes on the
+        # GPU), False = the XLA wavefront
         fast_shade = production_fast_shade(
             self.scene, self.camera, self.film,
             cfg.estimator, cfg.trace_type)

@@ -43,7 +43,7 @@ def trace_whitted(scene: T.Scene, origin, direction, seed, pixel_ids, spp_index,
         emissive_hit = hit.hit_mask & (mat_type == T.MAT_EMISSIVE)
 
         # background/env on miss
-        env_dir = jnp.einsum("ij,nj->ni", scene.env.transform, d)
+        env_dir = vm.mat3_apply(scene.env.transform, d)
         env_li = env_radiance(scene.env, scene.textures, env_dir)
         L = L + jnp.where((alive & miss)[:, None], beta * env_li, 0.0)
 

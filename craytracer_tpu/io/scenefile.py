@@ -201,9 +201,7 @@ def _load_texture(builder: SceneBuilder, file_name: str, search_dirs) -> int:
     for d in search_dirs:
         p = os.path.join(d, file_name)
         if os.path.exists(p):
-            img = load_texture_image(p)
-            if img is not None:
-                return builder.add_texture(file_name, img)
+            return builder.add_texture(file_name, load_texture_image(p))
     return -1
 
 
@@ -350,6 +348,13 @@ def load_scene_file(path: str, builder: SceneBuilder | None = None,
 
     `accel`: triangle accel backend ('auto' | 'none' | 'bvh' | 'grid'),
     the analog of the reference's accel_struct config (config.h:16)."""
+    builder, camera, film = parse_scene_file(path, builder)
+    return builder.build(accel=accel), camera, film
+
+
+def parse_scene_file(path: str, builder: SceneBuilder | None = None):
+    """Parse a scene file into a populated SceneBuilder (nothing built or
+    uploaded yet) -> (SceneBuilder, Camera, Film)."""
     with open(path) as f:
         ts = TokenStream(tokenize(f.read()))
     search_dirs = [os.path.dirname(os.path.abspath(path)), os.getcwd()]
@@ -424,7 +429,6 @@ def load_scene_file(path: str, builder: SceneBuilder | None = None,
                 builder.set_env_light("constant", _color_from(kv.get("COLOR"), (1, 1, 1)),
                                       intensity)
 
-    scene = builder.build(accel=accel)
     camera = make_camera(cam_pos, look_point)
     import jax.numpy as jnp
 
@@ -433,4 +437,4 @@ def load_scene_file(path: str, builder: SceneBuilder | None = None,
         width=int(film_kv["IMAGE_WIDTH"]),
         height=int(film_kv["IMAGE_HEIGHT"]),
     )
-    return scene, camera, film
+    return builder, camera, film

@@ -16,7 +16,7 @@ candidate sample so traversal stays a separate wavefront stage.
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax.numpy as jnp
 
 from craytracer_tpu.constants import INV_PI, JITTERED_UP, PI, TMAX, TWO_PI
@@ -25,7 +25,7 @@ from craytracer_tpu.sampling.mappings import map_to_disk_polar, map_to_hemispher
 from craytracer_tpu.scene import types as T
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class LightSample:
     wi: jnp.ndarray  # [N, 3] direction to the light sample
     li: jnp.ndarray  # [N, 3] incident radiance
@@ -142,7 +142,7 @@ def env_pdf(scene: T.Scene, wi, prev_normal):
         from craytracer_tpu.bsdf.texture import nearest_texel_xy
 
         H, W = scene.env.imp_h, scene.env.imp_w
-        d_look = jnp.einsum("ij,nj->ni", scene.env.transform, wi)
+        d_look = vm.mat3_apply(scene.env.transform, wi)
         theta, phi = vm.cartesian_to_spherical(d_look)
         u, v = vm.spherical_to_uv(theta, phi)
         # SAME texel addressing as the radiance lookup/sampler (reference
@@ -156,7 +156,7 @@ def env_pdf(scene: T.Scene, wi, prev_normal):
         # or MIS down-weights escape rays by a strategy that can't fire.
         facing = vm.dot(wi, prev_normal) >= 0.0
         return jnp.where(facing, p_tex / omega * env_pick, 0.0)
-    wi_local = jnp.einsum("ji,nj->ni", scene.env.transform, wi)
+    wi_local = vm.mat3_apply(scene.env.transform.T, wi)
     cos_t = jnp.maximum(vm.dot(wi_local, prev_normal), 0.0)
     return cos_t * INV_PI * env_pick
 
@@ -305,7 +305,7 @@ def sample_light_index(scene: T.Scene, idx, u2, hit_point, shading_normal,
             st = jnp.sin(theta)
             d_look = jnp.stack([st * jnp.cos(phi), jnp.cos(theta),
                                 st * jnp.sin(phi)], axis=-1)
-            wi_env = jnp.einsum("ji,nj->ni", scene.env.transform, d_look)
+            wi_env = vm.mat3_apply(scene.env.transform.T, d_look)
             li_env = env_radiance(scene.env, scene.textures, d_look)
             omega = (TWO_PI / W) * (PI / H) * jnp.maximum(st, 1e-6)
             pdf_env = p_tex / omega
@@ -317,7 +317,7 @@ def sample_light_index(scene: T.Scene, idx, u2, hit_point, shading_normal,
             # angle.
             h_env = map_to_hemisphere_cosine(u2)
             wi_env = vm.to_world(h_env, frame_t, frame_b, shading_normal)
-            wi_env = jnp.einsum("ij,nj->ni", scene.env.transform, wi_env)
+            wi_env = vm.mat3_apply(scene.env.transform, wi_env)
             li_env = env_radiance(scene.env, scene.textures, wi_env)
             pdf_env = jnp.abs(vm.dot(wi_env, shading_normal)) * INV_PI
             dist_env = jnp.broadcast_to(scene.env.world_radius,

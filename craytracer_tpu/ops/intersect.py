@@ -21,7 +21,7 @@ truth that the accelerated traversals (accel/) are tested against.
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax
 import jax.numpy as jnp
 
@@ -31,7 +31,7 @@ from craytracer_tpu.core.solvers import solve_quadratic, solve_quartic
 from craytracer_tpu.scene import types as T
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Hit:
     """SoA hit record — the wavefront ShadeRec (util/shaderec.h:7-19)."""
 
@@ -61,8 +61,7 @@ def _pair(o, d, prim_o):
 def sphere_ts(o, d, s: T.Spheres):
     """Partial-sphere hit distances (rayIntersectSphere, shapes/sphere.cpp:33-86):
     quadratic roots, each accepted only inside the phi/theta clip window."""
-    # Per-component [N,1] x [1,M] layout (see triangle_ts: a 3-wide minor
-    # dim lane-pads 42x on TPU).
+    # Per-component [N,1] x [1,M] layout (see triangle_ts).
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     cx, cy, cz = (s.center[None, :, 0], s.center[None, :, 1],
@@ -166,10 +165,9 @@ def triangle_ts(o, d, tr: T.Triangles, v0=None, e1=None, e2=None):
     kernel (shapes/triangle.cpp:81-151). Returns (t, beta, gamma).
 
     Written PER-COMPONENT ([N,1] ray columns against [1,M] triangle
-    rows) rather than over [N,M,3] vectors: on TPU a 3-wide minor dim
-    lane-pads to 128, so the vector form moves ~42x the bytes. This
-    brute-force path IS the hot path for small scenes (cornell = 20
-    tris; measured 2x on the production bench headline)."""
+    rows) rather than over [N,M,3] vectors: no 3-wide minor dimension is
+    ever materialized. This brute-force path IS the hot path for small
+    scenes on the XLA route (cornell = 20 tris)."""
     if v0 is None:
         v0 = tr.v0
         e1 = tr.v1 - tr.v0
@@ -201,8 +199,8 @@ def _instanced_object_rays(o, d, inst: T.Instanced):
     Direction is NOT renormalized so `t` parametrizes the world ray."""
     a = inst.inv_transform[None, :, :, :3]  # [1, M, 3, 3]
     b = inst.inv_transform[None, :, :, 3]  # [1, M, 3]
-    oo = jnp.einsum("nmij,nj->nmi", jnp.broadcast_to(a, (o.shape[0],) + a.shape[1:]), o) + b
-    od = jnp.einsum("nmij,nj->nmi", jnp.broadcast_to(a, (d.shape[0],) + a.shape[1:]), d)
+    oo = vm.mat3_apply(a, o[:, None, :]) + b  # [N, M, 3]
+    od = vm.mat3_apply(a, d[:, None, :])
     return oo, od
 
 
@@ -310,8 +308,7 @@ def _take(arr, idx):
 
 
 # All fills fetch their per-primitive attributes with ONE fused lookup
-# (ops/gather.py): separate jnp.take calls are latency-bound on TPU and
-# dominated round-1 bounce time.
+# (ops/gather.py) instead of one gather per field.
 from craytracer_tpu.ops.gather import take_rows
 
 
@@ -411,8 +408,8 @@ def _fill_instanced(o, d, t, idx, inst: T.Instanced):
     a, nm, kind, p, ntype, mat_id = take_rows(
         idx, (inst.inv_transform, inst.normal_mat, inst.kind, inst.params,
               inst.normal_type, inst.mat_id))
-    oo = jnp.einsum("nij,nj->ni", a[:, :, :3], o) + a[:, :, 3]
-    od = jnp.einsum("nij,nj->ni", a[:, :, :3], d)
+    oo = vm.mat3_apply(a[:, :, :3], o) + a[:, :, 3]
+    od = vm.mat3_apply(a[:, :, :3], d)
     hp = oo + t[:, None] * od
 
     # differentiable t via one implicit Newton step per kind
@@ -490,7 +487,7 @@ def _fill_instanced(o, d, t, idx, inst: T.Instanced):
     n_obj = jnp.where((kind == T.INST_DISK)[:, None], n_cap, n_obj)
 
     # Push normals to world through (M^-1)^T (instanced.cpp:97-103).
-    n = vm.normalize(jnp.einsum("nij,nj->ni", nm, n_obj))
+    n = vm.normalize(vm.mat3_apply(nm, n_obj))
     # Box faces the ray (generic.cpp:402-406).
     box_or_cap = (kind == T.INST_AABOX) | (kind == T.INST_DISK)
     n = jnp.where(
@@ -522,10 +519,10 @@ def intersect_scene(scene: T.Scene, o, d, camera_coherent: bool = False) -> Hit:
 
     `camera_coherent=True` marks the batch as Morton-tiled camera-bounce
     rays: when the scene carries a bounce-0 binned table (T.Scene.tri_cam,
-    CRAY_CAM_BINNED=1) the triangles group takes the treelet-vote MXU
-    traversal, whose block-synchronous cost model wins ~5x on compact
-    coherent tiles and loses on incoherent bounce rays (accel/binned.py
-    measurements) — bounce>=1 batches keep the fat-row/packet path.
+    CRAY_CAM_BINNED=1) the triangles group takes the treelet-vote binned
+    traversal, whose block-synchronous cost model favors compact coherent
+    tiles over incoherent bounce rays (accel/binned.py) — bounce>=1
+    batches keep the fat-row BVH4 path.
 
     Differentiability: the SEARCH (which primitive, at what distance) is
     detached; the FILL re-derives t/normal/uv differentiably for the
@@ -541,7 +538,6 @@ def intersect_scene(scene: T.Scene, o, d, camera_coherent: bool = False) -> Hit:
     # re-derives t/normal/uv from scene.triangles.
     scene = scene.replace(
         tri_bvh=jax.tree.map(jax.lax.stop_gradient, scene.tri_bvh),
-        tri_parts=jax.tree.map(jax.lax.stop_gradient, scene.tri_parts),
         sph_bvh=jax.tree.map(jax.lax.stop_gradient, scene.sph_bvh))
     best_t = jnp.full((n,), TMAX)
     best_group = jnp.full((n,), T.GROUP_NONE, jnp.int32)
@@ -566,73 +562,21 @@ def intersect_scene(scene: T.Scene, o, d, camera_coherent: bool = False) -> Hit:
 
             gmin, gidx = binned_closest_hit(scene.tri_cam, o_s, d_s,
                                             mxu=True,
-                                            precision=jax.lax.Precision.HIGH)
+                                            precision=jax.lax.Precision.HIGHEST)
             gidx = jnp.maximum(gidx, 0)
         elif gid == T.GROUP_TRIANGLE and scene.accel in ("bvh4", "hybrid"):
-            import os
+            from craytracer_tpu.accel.bvh4 import bvh4_closest_hit
 
-            from craytracer_tpu.accel.pallas_bvh4 import fits_vmem
-
-            # Compiled Pallas packet kernel: AUTO on the TPU backend when
-            # the fat node table is VMEM-resident-sized (measured ~2x the
-            # XLA while-loop on real renders); env forces either way.
-            gate = os.environ.get("CRAYTRACER_PALLAS_TRAVERSAL", "auto")
-            on_tpu = gate == "1" or (gate != "0"
-                                     and jax.default_backend() == "tpu")
-            use_pallas = on_tpu and fits_vmem(scene.tri_bvh)
-            # Past the VMEM bound (San-Miguel scale): partitioned packet
-            # traversal — each part rides VMEM in turn, carrying the best
-            # hit (accel/bvh4_parts.py).
-            use_parts = (on_tpu and not use_pallas
-                         and scene.tri_parts is not None)
-            if use_pallas or use_parts:
-                from craytracer_tpu.accel.pallas_bvh4 import RAY_BLOCK
-
-                blk = int(os.environ.get("CRAYTRACER_PALLAS_BLOCK",
-                                         str(RAY_BLOCK)))
-                # CRAYTRACER_PALLAS_INTERPRET=1 runs the kernel in
-                # interpret mode — lets CI/dryruns exercise the
-                # PRODUCTION kernel selection on the CPU backend (pair
-                # with CRAYTRACER_PALLAS_TRAVERSAL=1)
-                interp = os.environ.get(
-                    "CRAYTRACER_PALLAS_INTERPRET", "0") == "1"
-                if use_parts:
-                    from craytracer_tpu.accel.bvh4_parts import (
-                        pallas_parts_closest_hit)
-
-                    fn = lambda oo, dd: pallas_parts_closest_hit(  # noqa: E731
-                        scene.tri_parts, oo, dd, block=blk, interpret=interp)
-                else:
-                    from craytracer_tpu.accel.pallas_bvh4 import (
-                        pallas_bvh4_closest_hit)
-
-                    fn = lambda oo, dd: pallas_bvh4_closest_hit(  # noqa: E731
-                        scene.tri_bvh, oo, dd, block=blk, interpret=interp)
-                if os.environ.get("CRAYTRACER_RAY_SORT", "1") != "0":
-                    # coherence reorder: pays only with per-block loops
-                    # (ops/raysort.py module docstring)
-                    from craytracer_tpu.ops.raysort import sorted_traversal
-
-                    pb = int(os.environ.get("CRAYTRACER_SORT_BITS", "6"))
-                    dm = os.environ.get("CRAYTRACER_SORT_DIRMAJOR",
-                                        "0") == "1"
-                    gmin, gidx = sorted_traversal(fn, o_s, d_s,
-                                                  pos_bits=pb, dir_major=dm)
-                else:
-                    gmin, gidx = fn(o_s, d_s)
-            else:
-                from craytracer_tpu.accel.bvh4 import bvh4_closest_hit
-
-                gmin, gidx = bvh4_closest_hit(scene.tri_bvh, o_s, d_s)
+            gmin, gidx = bvh4_closest_hit(scene.tri_bvh, o_s, d_s)
             gidx = jnp.maximum(gidx, 0)
         elif gid == T.GROUP_TRIANGLE and scene.accel == "binned":
             from craytracer_tpu.accel.binned import binned_closest_hit
 
-            # mxu engages iff the build emitted coefficient columns;
-            # Precision.HIGH (bf16x3) is the measured accuracy/speed knee
+            # the matmul form engages iff the build emitted coefficient
+            # columns; HIGHEST keeps it exact float32 (no TF32)
             gmin, gidx = binned_closest_hit(scene.tri_bvh, o_s, d_s,
                                             mxu=True,
-                                            precision=jax.lax.Precision.HIGH)
+                                            precision=jax.lax.Precision.HIGHEST)
             gidx = jnp.maximum(gidx, 0)
         elif gid == T.GROUP_TRIANGLE and scene.accel == "bvh4q":
             from craytracer_tpu.accel.bvh4q import bvh4q_closest_hit
@@ -710,68 +654,10 @@ def shadow_distance(scene: T.Scene, o, d, max_dist=None) -> jnp.ndarray:
             md = max_dist if max_dist is not None else jnp.full((n,), TMAX)
             best_t = jnp.minimum(best_t, bvh_any_hit(scene.tri_bvh, o, d, md))
         elif gid == T.GROUP_TRIANGLE and scene.accel == "bvh4":
-            import os
-
-            from craytracer_tpu.accel.pallas_bvh4 import fits_vmem
+            from craytracer_tpu.accel.bvh4 import bvh4_any_hit
 
             md = max_dist if max_dist is not None else jnp.full((n,), TMAX)
-            # ROUND-4 REVERSAL: the round-3 "shadows stay XLA" verdict
-            # (XLA 6.27M vs kernel 1.20M rays/s) was measured at block
-            # 256 — ANOTHER narrow-block artifact. At the tuned block
-            # 2048 the packet any-hit lifts the full production render
-            # 1.19M -> 1.67M rays/s (+41%, identical images), so it is
-            # now AUTO on TPU for VMEM-resident tables, same gate as the
-            # closest-hit kernel. CRAYTRACER_PALLAS_ANYHIT=0 forces XLA,
-            # =1 forces the kernel.
-            gate = os.environ.get("CRAYTRACER_PALLAS_ANYHIT", "auto")
-            use_pallas = gate == "1" or (
-                gate != "0"
-                and jax.default_backend() == "tpu"
-                and fits_vmem(scene.tri_bvh))
-            if use_pallas:
-                from craytracer_tpu.accel.pallas_bvh4 import (
-                    pallas_bvh4_any_hit)
-
-                interp_ah = os.environ.get(
-                    "CRAYTRACER_PALLAS_INTERPRET", "0") == "1"
-                if os.environ.get("CRAYTRACER_RAY_SORT", "1") != "0":
-                    # shadow origins arrive shuffled after bounce 1; the
-                    # packet cost is the per-block UNION of node visits
-                    from craytracer_tpu.ops.raysort import ray_key
-
-                    perm = jnp.argsort(ray_key(o, d))
-                    t_s = pallas_bvh4_any_hit(
-                        scene.tri_bvh, jnp.take(o, perm, axis=0),
-                        jnp.take(d, perm, axis=0), jnp.take(md, perm),
-                        interpret=interp_ah)
-                    t_pal = jnp.zeros((n,), t_s.dtype).at[perm].set(t_s)
-                else:
-                    t_pal = pallas_bvh4_any_hit(scene.tri_bvh, o, d, md,
-                                                interpret=interp_ah)
-                best_t = jnp.minimum(best_t, t_pal)
-            elif (gate != "0" and jax.default_backend() == "tpu"
-                    and scene.tri_parts is not None):
-                # >VMEM tables: packet any-hit across the parts (lanes
-                # occluded by an earlier part carry md=0 and retire at
-                # the next part's first pop)
-                from craytracer_tpu.accel.bvh4_parts import (
-                    pallas_parts_any_hit)
-                from craytracer_tpu.ops.raysort import ray_key
-
-                interp_ah = os.environ.get(
-                    "CRAYTRACER_PALLAS_INTERPRET", "0") == "1"
-                perm = jnp.argsort(ray_key(o, d))
-                t_s = pallas_parts_any_hit(
-                    scene.tri_parts, jnp.take(o, perm, axis=0),
-                    jnp.take(d, perm, axis=0), jnp.take(md, perm),
-                    interpret=interp_ah)
-                t_pal = jnp.zeros((n,), t_s.dtype).at[perm].set(t_s)
-                best_t = jnp.minimum(best_t, t_pal)
-            else:
-                from craytracer_tpu.accel.bvh4 import bvh4_any_hit
-
-                best_t = jnp.minimum(
-                    best_t, bvh4_any_hit(scene.tri_bvh, o, d, md))
+            best_t = jnp.minimum(best_t, bvh4_any_hit(scene.tri_bvh, o, d, md))
         elif gid == T.GROUP_TRIANGLE and scene.accel in ("binned", "hybrid"):
             from craytracer_tpu.accel.binned import binned_any_hit
             from craytracer_tpu.ops.raysort import ray_key
@@ -787,7 +673,7 @@ def shadow_distance(scene: T.Scene, o, d, max_dist=None) -> jnp.ndarray:
             t_s = binned_any_hit(tb, jnp.take(o, perm, axis=0),
                                  jnp.take(d, perm, axis=0),
                                  jnp.take(md, perm), mxu=True,
-                                 precision=jax.lax.Precision.HIGH)
+                                 precision=jax.lax.Precision.HIGHEST)
             best_t = jnp.minimum(
                 best_t, jnp.zeros((n,), t_s.dtype).at[perm].set(t_s))
         elif gid == T.GROUP_TRIANGLE and scene.accel == "bvh4q":

@@ -4,7 +4,8 @@ gathered hit reduction"; §2 parallelism table "TP-like option only if a
 scene exceeds HBM").
 
 The reference has no counterpart (its threads share one scene in host
-RAM); this is the TPU-native answer to scenes larger than one chip's HBM:
+RAM); this is the batched answer to scenes larger than one device's
+memory:
 
 * the triangle soup (and its per-shard BVH) is split into contiguous
   blocks along a ``geom`` mesh axis — each device holds 1/G of the

@@ -2,8 +2,8 @@
 
 SURVEY.md §5.8 / BASELINE north star: `sharded_train_step` issues ONE
 tree-wide `pmean` after the whole backward pass — correct, but the
-cross-device reduction starts only when every gradient is ready, so ICI
-sits idle through the backward sweep and compute sits idle through the
+cross-device reduction starts only when every gradient is ready, so the
+device links sit idle through the backward sweep and compute sits idle through the
 reduce. The bucketed variant here wraps the scene's float leaves in a
 custom-VJP identity *per bounce* of an unrolled wavefront: each bounce's
 parameter-gradient contribution is all-reduced the moment that bounce's
@@ -13,8 +13,7 @@ keyed to wavefront stages instead of layers).
 
 Correctness: grad = sum_b g_b and pmean is linear, so
 sum_b pmean(g_b) == pmean(sum_b g_b) exactly (up to fp reassociation).
-`tests/test_overlap.py` asserts allclose against the single-pmean step;
-`profiling/overlap_schedule.py` records the all-reduce schedule evidence.
+`tests/test_overlap.py` asserts allclose against the single-pmean step.
 """
 
 from __future__ import annotations

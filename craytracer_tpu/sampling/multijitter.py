@@ -2,7 +2,7 @@
 
 The reference pre-generates `num_sets` tables of `num_samples` multijittered
 2-D points and walks them per pixel with permuted set sequences. The
-TPU-native default is the counter RNG; this module provides
+default here is the counter RNG; this module provides
 
 * `multijittered_table(...)`: the reference's table generator (host-side,
   for parity experiments and spectral comparisons), and

@@ -2,7 +2,7 @@
 
 The reference uses a global multijittered sample table + per-thread `Sampler`
 cursors and raw `rand()` calls (sampling.cpp:514-603, trace.h:371,516) — a
-stateful, data-race-prone design. The TPU-native replacement is a pure
+stateful, data-race-prone design. The replacement here is a pure
 counter-based generator: every uniform is a hash of
 (seed, pixel_id, spp_index, bounce, dimension), so any lane on any shard of
 any host can regenerate its stream independently — no state, no

@@ -6,7 +6,7 @@ sampling.cpp generates three 2-D point-set kinds (genRegularSamples
 each pixel a random set and walks per-dimension permutations of the sets
 (createGlobalSampleObject :514-544, Sampler_getSample :564-603).
 
-TPU-native shape: the table is a static [num_sets, num_samples, 2] array
+Batched shape: the table is a static [num_sets, num_samples, 2] array
 baked on the host; the per-pixel/per-dimension set choice is a stateless
 hash (the counter-RNG analog of the reference's rand()-filled
 `random_sets` and `permutation_arrays`), so any lane on any shard can
@@ -26,7 +26,7 @@ sets collide along a path, a known weakness, not a behavior to copy).
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax.numpy as jnp
 import numpy as np
 
@@ -70,12 +70,12 @@ def hammersley_table(num_samples: int, num_sets: int,
     return out
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SampleTable:
     """Pytree wrapper for a device-resident sample-set table."""
 
     points: jnp.ndarray  # [num_sets, num_samples, 2] f32
-    kind: str = flax.struct.field(pytree_node=False, default="multijittered")
+    kind: str = struct.field(pytree_node=False, default="multijittered")
 
     @property
     def num_sets(self) -> int:

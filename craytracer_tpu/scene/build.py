@@ -487,7 +487,6 @@ class SceneBuilder:
             accel = "bvh4" if n_tris >= 64 else "none"
         tri_bvh = None
         tri_shadow = None
-        tri_parts = None
         tri_cam = None
         if n_tris == 0:
             accel = "none"
@@ -518,8 +517,8 @@ class SceneBuilder:
 
             from craytracer_tpu.accel.bvh4 import build_bvh4
 
-            # leaf_size=2 keeps the fat row under the 128-col TPU gather
-            # cliff (see BVH4Arrays.leaf_size); env-tunable for A/B.
+            # leaf_size=2 keeps the fat row at 128 columns (see
+            # BVH4Arrays.leaf_size); env-tunable for A/B.
             leaf = int(os.environ.get("CRAY_BVH4_LEAF", "2"))
             # SAH default (hit-identical to median, better trees on
             # irregular scenes); median when the native builder is absent
@@ -531,14 +530,6 @@ class SceneBuilder:
                                  np.asarray(tv[2]), leaf_size=leaf,
                                  split=os.environ.get("CRAY_BVH_SPLIT",
                                                       default_split))
-            # San-Miguel scale: when the fat table exceeds the VMEM part
-            # budget, also cut it into packet-kernel-sized parts (the
-            # monolithic table stays for the XLA/shadow paths).
-            from craytracer_tpu.accel.bvh4_parts import (PART_BUDGET_BYTES,
-                                                         partition_bvh4)
-
-            if tri_bvh.fat.size * 4 > PART_BUDGET_BYTES:
-                tri_parts = partition_bvh4(tri_bvh)
             # Camera-bounce binned table (T.Scene.tri_cam): opt-in while
             # the end-to-end win is being measured (CRAY_CAM_BINNED=1)
             if os.environ.get("CRAY_CAM_BINNED", "0") == "1":
@@ -599,7 +590,7 @@ class SceneBuilder:
             spheres=spheres, planes=planes, rects=rects, disks=disks,
             triangles=triangles, instanced=instanced, materials=materials,
             lights=lights, mesh_lights=mesh_lights, env=env, textures=textures,
-            tri_bvh=tri_bvh, tri_shadow=tri_shadow, tri_parts=tri_parts,
+            tri_bvh=tri_bvh, tri_shadow=tri_shadow,
             tri_cam=tri_cam,
             sph_bvh=sph_bvh, accel=accel,
             mat_types_present=tuple(sorted(

@@ -1,4 +1,4 @@
-"""Flat SoA scene pytrees — the TPU-native replacement for the reference's
+"""Flat SoA scene pytrees — the batched replacement for the reference's
 pointer-based tagged-union scene graph (`scene/scenedata.h:20-307`,
 `shapes/objecttype.h:19-23`).
 
@@ -11,7 +11,7 @@ leaf for inverse rendering.
 
 from __future__ import annotations
 
-import flax.struct
+from craytracer_tpu.core import struct
 import jax.numpy as jnp
 
 # Material type codes (compact re-encoding of materials.h:8-18).
@@ -60,7 +60,7 @@ GROUP_TRIANGLE = 4
 GROUP_INSTANCED = 5
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Spheres:
     """Partial spheres (theta/phi clipped), shapes/sphere.h."""
 
@@ -72,14 +72,14 @@ class Spheres:
     mat_id: jnp.ndarray  # [N] int32
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Planes:
     point: jnp.ndarray  # [N, 3]
     normal: jnp.ndarray  # [N, 3]
     mat_id: jnp.ndarray  # [N]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Rects:
     point: jnp.ndarray  # [N, 3]
     width: jnp.ndarray  # [N, 3] edge vector
@@ -88,7 +88,7 @@ class Rects:
     mat_id: jnp.ndarray  # [N]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Disks:
     center: jnp.ndarray  # [N, 3]
     normal: jnp.ndarray  # [N, 3]
@@ -96,7 +96,7 @@ class Disks:
     mat_id: jnp.ndarray  # [N]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Triangles:
     """World-space-baked triangles: standalone (shapes/triangle.h) and mesh
     triangles (FlatTriangle/SmoothTriangle, shapes/triangle.h:24-40) share one
@@ -119,7 +119,7 @@ class Triangles:
     mat_id: jnp.ndarray  # [N]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Instanced:
     """Canonical primitives behind an inverse object-to-world transform
     (shapes/instanced.cpp:48-105): rays are pulled into object space, normals
@@ -133,7 +133,7 @@ class Instanced:
     mat_id: jnp.ndarray  # [N]
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Materials:
     """Flat material table (mat_id indexes every array).
 
@@ -161,7 +161,7 @@ class Materials:
     normal_tex: jnp.ndarray  # [M] int32 texture id or -1
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Lights:
     """Flat light table with inline geometry + normalized power CDF
     (preprocessLights, buildscene.h:835-923)."""
@@ -181,7 +181,7 @@ class Lights:
     src_prim: jnp.ndarray  # [L] index within that group (MIS back-reference)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class MeshLights:
     """Emissive-triangle soup lights (lights.h:70-80): per-light CDF over
     triangle areas, sampled with searchsorted + uniform barycentrics."""
@@ -194,7 +194,7 @@ class MeshLights:
     # (MIS back-reference: which Lights row an emissive triangle belongs to)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class EnvLight:
     """Environment light (lights.h:51-60). `kind` is static: 0 none,
     1 constant, 2 texture."""
@@ -204,19 +204,19 @@ class EnvLight:
     transform: jnp.ndarray  # [3, 3] direction transform (identity or rot-y)
     world_radius: jnp.ndarray  # scalar, set by preprocess (2x scene diagonal)
     tex_id: jnp.ndarray  # int32
-    kind: int = flax.struct.field(pytree_node=False, default=0)
+    kind: int = struct.field(pytree_node=False, default=0)
     # Texel importance sampling (beyond-reference, opt-in via
     # set_env_light(importance=True) / scene-file `IMPORTANCE yes`):
     # flat_cdf/flat_pdf are the luminance*sin(theta) distribution over the
     # lat-long texel grid (row-major [H*W]); imp_h/imp_w static dims.
     flat_cdf: jnp.ndarray = None  # [H*W] inclusive cumsum, or None
     flat_pdf: jnp.ndarray = None  # [H*W] texel probabilities, or None
-    importance: int = flax.struct.field(pytree_node=False, default=0)
-    imp_h: int = flax.struct.field(pytree_node=False, default=0)
-    imp_w: int = flax.struct.field(pytree_node=False, default=0)
+    importance: int = struct.field(pytree_node=False, default=0)
+    imp_h: int = struct.field(pytree_node=False, default=0)
+    imp_w: int = struct.field(pytree_node=False, default=0)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class TexturePack:
     """All textures packed into one flat texel pool + a descriptor table, so
     a single gather serves every texture lookup (reference: per-texture
@@ -237,7 +237,7 @@ def empty_texture_pack() -> TexturePack:
     )
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Scene:
     """The whole differentiable scene as one pytree.
 
@@ -259,40 +259,32 @@ class Scene:
     tri_bvh: object = None  # BVHArrays when accel == 'bvh'
     # Hybrid shadow accel (accel == 'hybrid'): BinnedArrays consumed ONLY
     # by shadow_distance — any-hit retire-on-occlusion + max_dist pruning
-    # fit the binned block-sync design (measured 4.1x the fat-row any-hit
-    # at 327k tris on TPU), while closest-hit bounce rays stay on the
-    # fat-row BVH4 (incoherent-robust).
+    # fit the binned block-sync design, while closest-hit bounce rays stay
+    # on the fat-row BVH4 (incoherent-robust).
     tri_shadow: object = None
-    # Partitioned fat-row BVH4 (tuple of BVH4Arrays) when the monolithic
-    # table exceeds the VMEM part budget (accel/bvh4_parts.py): the Pallas
-    # packet kernel traverses part-by-part with carried best hit. None for
-    # VMEM-sized scenes; the monolithic tri_bvh is ALWAYS kept alongside
-    # (XLA closest-hit fallback + shadow any-hit consume it).
-    tri_parts: object = None
     # Camera-bounce closest-hit accel (CRAY_CAM_BINNED=1): BinnedArrays
     # consumed ONLY for bounce-0 rays, which are Morton-tiled camera
-    # bundles — the binned treelet traversal's best case (measured 5.16M
-    # vs 1.04M rays/s traversal-only on coherent tiles, accel/binned.py)
-    # while bounce>=1 rays stay on the fat-row BVH4 / packet kernel.
+    # bundles — the binned treelet traversal's best case — while
+    # bounce>=1 rays stay on the fat-row BVH4.
     tri_cam: object = None
     # Sphere acceleration (analytic primitives indexed like the reference's
     # grid/BVH hold all object types, scene/scenedata.h:12-18): built for
     # sphere-heavy scenes, None = brute force.
     sph_bvh: object = None
-    accel: str = flax.struct.field(pytree_node=False, default="none")
+    accel: str = struct.field(pytree_node=False, default="none")
     # Static set of MAT_* codes present in the material table, filled by
     # SceneBuilder. jit specializes on it: absent material types cost zero
     # lobe evaluations in the BSDF stage (bsdf/bxdf.py `present`). Empty
     # tuple = unknown -> evaluate everything.
-    mat_types_present: tuple = flax.struct.field(pytree_node=False, default=())
+    mat_types_present: tuple = struct.field(pytree_node=False, default=())
     # Static set of LIGHT_* codes present in the light table — the light-
     # sampling analog of mat_types_present: absent light types cost zero
     # sampling work (lights/lights.py). Empty tuple = unknown -> all types.
-    light_types_present: tuple = flax.struct.field(pytree_node=False, default=())
+    light_types_present: tuple = struct.field(pytree_node=False, default=())
     # True when every MATTE material has sigma == 0: the Oren-Nayar lobe
     # degenerates exactly to Lambertian and its trig (4 divides, 2 sqrt per
     # lane per eval) compiles away (bsdf/bxdf.py _oren_nayar_f).
-    matte_lambertian: bool = flax.struct.field(pytree_node=False, default=False)
+    matte_lambertian: bool = struct.field(pytree_node=False, default=False)
 
     @property
     def num_lights(self) -> int:

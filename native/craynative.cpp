@@ -2,7 +2,7 @@
 //
 // The reference implements its scene-ingest and accel-build runtime in C++
 // (objloader/objloader.h:738-936, accelerator/bvh.h:117-154); these are the
-// TPU-framework equivalents: a fast OBJ scanner and a median-split BVH
+// equivalents here: a fast OBJ scanner and a median-split BVH
 // builder, exposed through a C ABI consumed via ctypes
 // (craytracer_tpu/native.py). Semantics match the Python fallbacks
 // bit-for-bit at the traversal level (same split rule, same leaf policy).

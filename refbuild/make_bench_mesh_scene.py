@@ -1,9 +1,6 @@
-"""Export bench_mesh.py's procedural icosphere-field scene for the
-reference binary, so the SAME geometry/camera/lights can be rendered by
-both renderers (the head-to-head the judge asked for in VERDICT round 3).
-
-Reproduces build_scene() from bench_mesh.py exactly (same RNG seed, same
-placement math), but emits
+"""Write the procedural icosphere-field mesh scene (deterministic, seed 0)
+in the reference's scene grammar, so the SAME geometry/camera/lights can
+be rendered by both renderers. Emits
 
 * scenes/bench_mesh.obj   — the spheres as one world-space OBJ group
                             (shared vertices, 1-indexed faces)
@@ -13,8 +10,8 @@ placement math), but emits
                             and lamp RECTANGLEs, OBJECT MESH with
                             identity transform (world-space verts baked).
 
-The camera matches bench_mesh.py: eye (0, 40, 3.2*sqrt(count)+40),
-look (0, 2, 0), FOV 50, square film.
+Camera: eye (0, 40, 3.2*sqrt(count)+40), look (0, 2, 0), FOV 50, square
+film. chip_smoke.py calls `write_scene` for its deployment-size mesh.
 
 Usage: python refbuild/make_bench_mesh_scene.py [--tris 327680]
 """
@@ -33,22 +30,20 @@ SCENES = os.path.join(HERE, "..", "scenes")
 sys.path.insert(0, SCENES)
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tris", type=int, default=327680)
-    ap.add_argument("--size", type=int, default=256)
-    ap.add_argument("--name", default="bench_mesh")
-    args = ap.parse_args()
-
+def write_scene(tris: int = 327680, size: int = 256,
+                name: str = "bench_mesh", out_dir: str = SCENES):
+    """Write <out_dir>/<name>.obj (about `tris` triangles, whole
+    1280-triangle icospheres) and <out_dir>/<name>.txt; returns the path
+    of the scene file."""
     from make_fixtures import icosphere
 
     v, f = icosphere(3)  # 1280 tris, 642 verts per sphere
     per = f.shape[0]
-    count = max(1, args.tris // per)
+    count = max(1, tris // per)
     grid = int(np.ceil(np.sqrt(count)))
 
-    # identical placement loop to bench_mesh.build_scene (seed 0; one
-    # rng.random() for height then one for scale, per sphere)
+    # placement: seed 0; one rng.random() for height then one for scale,
+    # per sphere
     rng = np.random.default_rng(0)
     verts_out, faces_out = [], []
     base = 0
@@ -67,7 +62,7 @@ def main():
     verts = np.concatenate(verts_out).astype(np.float32)
     faces = np.concatenate(faces_out) + 1  # OBJ is 1-indexed
 
-    obj_path = os.path.join(SCENES, args.name + ".obj")
+    obj_path = os.path.join(out_dir, name + ".obj")
     buf = io.StringIO()
     np.savetxt(buf, verts, fmt="v %.6f %.6f %.6f")
     np.savetxt(buf, faces, fmt="f %d %d %d")
@@ -75,10 +70,10 @@ def main():
         fh.write(buf.getvalue())
 
     eye_z = 3.2 * (count * per / 1280) ** 0.5 + 40
-    scene = f"""WINDOW_WIDTH {args.size}
-WINDOW_HEIGHT {args.size}
-IMAGE_WIDTH {args.size}
-IMAGE_HEIGHT {args.size}
+    scene = f"""WINDOW_WIDTH {size}
+WINDOW_HEIGHT {size}
+IMAGE_WIDTH {size}
+IMAGE_HEIGHT {size}
 FOV 50.0
 CAMERA_POS 0 40 {eye_z:.4f}
 LOOK_POINT 0 2 0
@@ -109,7 +104,7 @@ HEIGHT 0 0 400
 MATERIAL w
 
 OBJECT MESH
-FILE_NAME {args.name}.obj
+FILE_NAME {name}.obj
 SMOOTH no
 SCALING 1 1 1
 LOCATION 0 0 0
@@ -122,11 +117,21 @@ WIDTH 20 0 0
 HEIGHT 0 0 20
 MATERIAL l
 """
-    txt_path = os.path.join(SCENES, args.name + ".txt")
+    txt_path = os.path.join(out_dir, name + ".txt")
     with open(txt_path, "w") as fh:
         fh.write(scene)
     print(f"wrote {obj_path} ({faces.shape[0]} tris, {verts.shape[0]} verts)")
     print(f"wrote {txt_path} (eye z {eye_z:.2f})")
+    return txt_path
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tris", type=int, default=327680)
+    ap.add_argument("--size", type=int, default=256)
+    ap.add_argument("--name", default="bench_mesh")
+    args = ap.parse_args()
+    write_scene(args.tris, args.size, args.name)
 
 
 if __name__ == "__main__":

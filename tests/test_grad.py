@@ -99,13 +99,17 @@ def test_light_color_grad_matches_fd(setup):
 
 
 def test_multichip_dryrun():
-    """The driver's multi-chip validation path: 8-device mesh, sharded
-    forward + backward with grad psum (see __graft_entry__)."""
+    """The multi-device validation path: 8-device mesh, sharded forward +
+    backward with grad psum, geometry sharding, and the whole-pass
+    megakernel (interpret mode) under the ray-sharded mesh (see
+    __graft_entry__)."""
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
-    ge.dryrun_multichip(8)
+    ge.dryrun_multichip(8, interpret=True)
 
 
 def test_camera_position_grad_matches_fd():

@@ -1,7 +1,12 @@
-"""Fused Pallas shade kernel (integrator/pallas_shade.py) vs the XLA shade
-stage: same scene, same rays, same RNG counters -> the per-pass radiance and
-good_paths must agree to f32 rounding, at every bounce depth. Runs the
-kernel in interpret mode on the CPU backend."""
+"""Whole-pass megakernel (integrator/pallas_shade.py) vs the XLA wavefront:
+same scene, same rays, same RNG counters -> the per-pass radiance and
+good_paths must agree to f32 rounding (2e-5; 5e-5 for the microfacet
+scenes, whose longer transcendental chains round differently in the
+interpreter), at every bounce depth. Runs the kernel in interpret mode on
+the CPU backend; the compiled kernel's agreement is checked on the card
+by chip_smoke.py."""
+
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -16,7 +21,8 @@ from craytracer_tpu.sampling import uniforms
 
 
 def _cornell(size=24):
-    scene, cam, film = load_scene_file("/root/reference/cornell_box.txt")
+    scene, cam, film = load_scene_file(os.path.join(
+        os.path.dirname(__file__), "..", "scenes", "parity_cornell.txt"))
     film = film.replace(width=size, height=size)
     return scene, cam, film
 
@@ -40,13 +46,13 @@ def test_bounce_mode_gate():
     from craytracer_tpu.integrator.pallas_shade import fast_shade_mode
 
     scene, _, _ = _cornell()
-    # cornell: 9 rects + 20 flat triangles, no accel tables -> the
-    # whole-bounce kernel applies
+    # cornell: 8 rects + 20 flat triangles, no accel tables -> the
+    # whole-pass kernel applies
     assert fast_shade_mode(scene) == "bounce"
 
 
 @pytest.mark.parametrize("depth", [0, 2, 5])
-@pytest.mark.parametrize("mode", ["shade", "bounce"])
+@pytest.mark.parametrize("mode", ["bounce"])
 def test_fast_shade_matches_xla(depth, mode):
     scene, cam, film = _cornell()
     n = film.num_pixels
@@ -58,7 +64,7 @@ def test_fast_shade_matches_xla(depth, mode):
                                          with_metrics=True)
     L_fast, good_fast, m_fast = trace_paths(scene, o, d, 0, pix, 0, depth,
                                             with_metrics=True,
-                                            fast_shade=mode)
+                                            fast_shade=mode, interpret=True)
     np.testing.assert_allclose(np.asarray(L_fast), np.asarray(L_ref),
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_array_equal(np.asarray(good_fast),
@@ -67,7 +73,7 @@ def test_fast_shade_matches_xla(depth, mode):
     assert int(m_fast["shadow_rays"]) == int(m_ref["shadow_rays"])
 
 
-@pytest.mark.parametrize("mode", ["shade", "bounce"])
+@pytest.mark.parametrize("mode", ["bounce"])
 def test_fast_shade_mirror_sphere_matches_xla(mode):
     """Round-5 extensions: MIRROR lobe + sphere primitives (incl. the
     clipped-sphere window and the unclamped-acos quirk) in the fused
@@ -103,7 +109,7 @@ def test_fast_shade_mirror_sphere_matches_xla(mode):
                                          with_metrics=True)
     L_fast, good_fast, m_fast = trace_paths(scene, o, d, 0, pix, 0, 4,
                                             with_metrics=True,
-                                            fast_shade=mode)
+                                            fast_shade=mode, interpret=True)
     np.testing.assert_allclose(np.asarray(L_fast), np.asarray(L_ref),
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_array_equal(np.asarray(good_fast),
@@ -112,20 +118,7 @@ def test_fast_shade_mirror_sphere_matches_xla(mode):
     assert int(m_fast["shadow_rays"]) == int(m_ref["shadow_rays"])
 
 
-def test_fast_shade_full_pass_per_lane_spp():
-    # per-lane spp indices (the spp-batched dispatch path) through
-    # render_sample, deep enough to exercise Russian roulette
-    scene, cam, film = _cornell(16)
-    n = film.num_pixels
-    pix = jnp.tile(jnp.arange(n, dtype=jnp.int32), 2)
-    spp = jnp.repeat(jnp.arange(2, dtype=jnp.int32), n)
-    ref = render_sample(scene, cam, film, pix, 3, spp, 6)
-    fast = render_sample(scene, cam, film, pix, 3, spp, 6, fast_shade=True)
-    np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
-                               rtol=2e-5, atol=2e-5)
-
-
-@pytest.mark.parametrize("mode", ["shade", "bounce"])
+@pytest.mark.parametrize("mode", ["bounce"])
 def test_fast_shade_sphere_light_matches_xla(mode):
     """Sphere AREA lights in the fused path (cosine hemisphere about the
     center->hit axis, trace.h:230-243) vs the XLA step."""
@@ -153,7 +146,7 @@ def test_fast_shade_sphere_light_matches_xla(mode):
                                          with_metrics=True)
     L_fast, good_fast, m_fast = trace_paths(scene, o, d, 0, pix, 0, 4,
                                             with_metrics=True,
-                                            fast_shade=mode)
+                                            fast_shade=mode, interpret=True)
     np.testing.assert_allclose(np.asarray(L_fast), np.asarray(L_ref),
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_array_equal(np.asarray(good_fast),
@@ -194,12 +187,12 @@ def test_fused_raygen_strat_through_render_sample():
     spp = jnp.repeat(jnp.arange(2, dtype=jnp.int32), n)
     ref = render_sample(scene, cam, film, pix, 3, spp, 6)
     fast = render_sample(scene, cam, film, pix, 3, spp, 6,
-                         fast_shade="bounce")
+                         fast_shade="bounce", interpret=True)
     np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("mode", ["shade", "bounce"])
+@pytest.mark.parametrize("mode", ["bounce"])
 def test_fast_shade_oren_plastic_metal_matches_xla(mode):
     """Round-5 late extensions: Oren-Nayar matte (sigma != 0), PLASTIC
     (two-lobe FresnelBlend, isotropic Beckmann) and METAL (conductor
@@ -238,7 +231,7 @@ def test_fast_shade_oren_plastic_metal_matches_xla(mode):
                                          with_metrics=True)
     L_fast, good_fast, m_fast = trace_paths(scene, o, d, 0, pix, 0, 4,
                                             with_metrics=True,
-                                            fast_shade=mode)
+                                            fast_shade=mode, interpret=True)
     np.testing.assert_allclose(np.asarray(L_fast), np.asarray(L_ref),
                                rtol=5e-5, atol=5e-5)
     np.testing.assert_array_equal(np.asarray(good_fast),
@@ -247,7 +240,7 @@ def test_fast_shade_oren_plastic_metal_matches_xla(mode):
     assert int(m_fast["shadow_rays"]) == int(m_ref["shadow_rays"])
 
 
-@pytest.mark.parametrize("mode", ["shade", "bounce"])
+@pytest.mark.parametrize("mode", ["bounce"])
 def test_fast_shade_glass_transparent_matches_xla(mode):
     """GLASS (microfacet fresnel refl/trans, incl. the reference's
     1-Fr(wh,wi) reflection quirk) and TRANSPARENT (thin) in the fused
@@ -279,7 +272,7 @@ def test_fast_shade_glass_transparent_matches_xla(mode):
                                          with_metrics=True)
     L_fast, good_fast, m_fast = trace_paths(scene, o, d, 0, pix, 0, 5,
                                             with_metrics=True,
-                                            fast_shade=mode)
+                                            fast_shade=mode, interpret=True)
     np.testing.assert_allclose(np.asarray(L_fast), np.asarray(L_ref),
                                rtol=5e-5, atol=5e-5)
     np.testing.assert_array_equal(np.asarray(good_fast),
@@ -299,12 +292,12 @@ def test_fused_raygen_wide_film_rowcol_exact():
     pix = jnp.arange(n, dtype=jnp.int32)
     ref = render_sample(scene, cam, film, pix, 1, 0, 1)
     fast = render_sample(scene, cam, film, pix, 1, 0, 1,
-                         fast_shade="bounce")
+                         fast_shade="bounce", interpret=True)
     np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("mode", ["shade", "bounce"])
+@pytest.mark.parametrize("mode", ["bounce"])
 def test_fast_shade_plane_disk_matches_xla(mode):
     """Planes + disks in the whole-bounce prim table (round-5 fast-path
     coverage extension): unbounded single-sided plane (no facing flip,
@@ -346,7 +339,7 @@ def test_fast_shade_plane_disk_matches_xla(mode):
                                          with_metrics=True)
     L_fast, good_fast, m_fast = trace_paths(scene, o, d, 0, pix, 0, 4,
                                             with_metrics=True,
-                                            fast_shade=mode)
+                                            fast_shade=mode, interpret=True)
     np.testing.assert_allclose(np.asarray(L_fast), np.asarray(L_ref),
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_array_equal(np.asarray(good_fast),
@@ -363,23 +356,24 @@ def test_fused_raygen_thinlens_matches_xla():
     from craytracer_tpu.camera import THINLENS
 
     scene, cam0, film = _cornell()
+    # focus on the back wall (unit-scale box, camera 1.458 in front)
     cam = cam0.replace(camera_type=THINLENS,
-                       focal_length=jnp.float32(800.0),
-                       lens_radius=jnp.float32(2.0))
+                       focal_length=jnp.float32(1.458),
+                       lens_radius=jnp.float32(0.0036))
     n = film.num_pixels
     pix = jnp.arange(n, dtype=jnp.int32)
     ref = render_sample(scene, cam, film, pix, 2, 0, 4)
     assert float(np.asarray(ref).mean()) > 0.1  # non-vacuous image
     fast = render_sample(scene, cam, film, pix, 2, 0, 4,
-                         fast_shade="bounce")
+                         fast_shade="bounce", interpret=True)
     np.testing.assert_allclose(np.asarray(fast), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("mode", ["shade", "bounce"])
+@pytest.mark.parametrize("mode", ["bounce"])
 def test_fast_shade_aabox_matches_xla(mode):
     """Instanced AABOX in the whole-bounce prim table: world->object
-    affine in SMEM (rotated + scaled boxes), the exact _aabox_ts slab
+    affine in the box table (rotated + scaled boxes), the exact _aabox_ts slab
     test, the face-plane Newton t refinement, dominant-axis normal
     through (M^-1)^T, faced toward the ray (_fill_instanced box legs) —
     vs the XLA step on the same rays. Boxes index after every other
@@ -415,7 +409,7 @@ def test_fast_shade_aabox_matches_xla(mode):
     assert float(np.asarray(L_ref).mean()) > 0.01  # non-vacuous
     L_fast, good_fast, m_fast = trace_paths(scene, o, d, 0, pix, 0, 4,
                                             with_metrics=True,
-                                            fast_shade=mode)
+                                            fast_shade=mode, interpret=True)
     np.testing.assert_allclose(np.asarray(L_fast), np.asarray(L_ref),
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_array_equal(np.asarray(good_fast),

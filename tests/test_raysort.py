@@ -1,17 +1,11 @@
-"""Ray-coherence sorting (ops/raysort.py): key sanity + drop-in equivalence.
+"""Ray-coherence sort keys (ops/raysort.py), used to order shadow rays
+for the block-synchronous binned any-hit traversal. The reference has no
+analog (single-ray CPU traversal, intersect.h)."""
 
-The reference has no analog (single-ray CPU traversal, intersect.h) —
-this is TPU-side machinery for the Pallas per-block traversal, so the
-tests assert pure-reordering semantics: identical results in the
-caller's ray order, through both a trivial backend and the real Pallas
-kernel in interpret mode.
-"""
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from craytracer_tpu.ops.raysort import morton3, ray_key, sorted_traversal
+from craytracer_tpu.ops.raysort import morton3, ray_key
 
 
 def test_morton3_known_values():
@@ -43,47 +37,3 @@ def test_key_groups_spatial_clusters():
     halves = (order < 64)
     # a perfect split: one cluster occupies each half of the sorted order
     assert halves[:64].all() != halves[64:].any()
-
-
-def test_sorted_traversal_is_pure_reordering():
-    rng = np.random.default_rng(1)
-    o = jnp.asarray(rng.normal(size=(100, 3)), jnp.float32)
-    d = jnp.asarray(rng.normal(size=(100, 3)), jnp.float32)
-
-    def backend(oo, dd):
-        # any per-ray function of (o, d): results must come back unpermuted
-        return oo.sum(-1) * 2.0, (dd[:, 0] > 0).astype(jnp.int32)
-
-    t, tri = sorted_traversal(backend, o, d)
-    t_ref, tri_ref = backend(o, d)
-    np.testing.assert_allclose(np.asarray(t), np.asarray(t_ref), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(tri), np.asarray(tri_ref))
-
-
-def test_sorted_pallas_traversal_matches_unsorted():
-    import sys
-
-    sys.path.insert(0, "scenes")
-    from make_fixtures import icosphere
-    from craytracer_tpu.accel.bvh4 import build_bvh4, bvh4_closest_hit
-    from craytracer_tpu.accel.pallas_bvh4 import pallas_bvh4_closest_hit
-
-    v, f = icosphere(2)
-    v0, v1, v2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
-    bvh = build_bvh4(v0, v1, v2)
-
-    rng = np.random.default_rng(2)
-    n = 300  # not a multiple of the ray block: exercises padding
-    o = jnp.asarray(rng.normal(size=(n, 3)) * 3.0, jnp.float32)
-    d = jnp.asarray(rng.normal(size=(n, 3)), jnp.float32)
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-
-    fn = lambda oo, dd: pallas_bvh4_closest_hit(  # noqa: E731
-        bvh, oo, dd, interpret=True)
-    t_sorted, tri_sorted = jax.jit(
-        lambda oo, dd: sorted_traversal(fn, oo, dd))(o, d)
-    t_ref, tri_ref = bvh4_closest_hit(bvh, o, d)
-    np.testing.assert_array_equal(np.asarray(tri_sorted), np.asarray(tri_ref))
-    hit = np.asarray(tri_ref) >= 0
-    np.testing.assert_allclose(np.asarray(t_sorted)[hit],
-                               np.asarray(t_ref)[hit], rtol=1e-5)
